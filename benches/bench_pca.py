@@ -1,4 +1,4 @@
-"""PCA engine comparison: jacobi-CG (cpu/tpu), subspace (device-resident),
+"""PCA engine comparison: jacobi-CG (cpu/gpu), subspace (device-resident),
 scikit-learn (BASELINE config 2: LFW-class 800-1100 components).
 
 Usage:
@@ -40,10 +40,10 @@ def run(m=4000, n=6000, npc=300, engines=('jacobi-cpu', 'subspace',
             mean = p.mean_.reshape(1, -1)
         elif engine == 'subspace':
             mean, trans, comps = pca(A, npc=npc, method='subspace')
-        elif engine == 'jacobi-tpu':
-            # force the parity engine: arch='tpu' alone now routes to
+        elif engine == 'jacobi-gpu':
+            # force the parity engine: arch='gpu' alone routes to
             # the subspace engine via method='auto'
-            mean, trans, comps = pca(A, npc=npc, arch='tpu',
+            mean, trans, comps = pca(A, npc=npc, arch='gpu',
                                      method='jacobi')
         else:
             mean, trans, comps = pca(A, npc=npc, arch='cpu')

@@ -1,70 +1,91 @@
-"""SpMM throughput benchmark: nnz/s for the ELL, BSR and Pallas device
-kernels on Laplacian and synthetic banded matrices.
+"""Scattered-pattern SpMM on one GPU: BSR against ELL on the FE stiffness
+pattern at several mesh sizes, beside the layout ``sparse_layout`` picks.
 
-Usage:
-    python benches/bench_spmm.py [n_1d] [block_width] [reps]
+Each case is a box-girder stiffness matrix (``examples.fe_model.fe_pencil``
+with ``nc`` cells across; 39 is the n = 139k flagship), in the mesher's
+node order, plus the flagship randomly relabelled.  One (m, n) row-block
+apply of each layout is timed chained (``bench.chain_seconds``) and
+checked against scipy's f64 product.  BSR is skipped where its tiles
+would take more than ``--max-tile-gb``.
 
-Prints one JSON line per (kernel, matrix) pair:
-  {"metric": "spmm_nnz_per_s", "kernel": ..., "matrix": ..., "value": ...}
-
-Speed-of-light reference: the ELL kernel is HBM-bandwidth bound — per
-nonzero it moves 8 bytes of structure (idx+val) plus the gathered operand
-row segment; on a v5e (~800 GB/s) with block width m the bound is roughly
-800e9 / (8 + 4*m/reuse) nnz/s.
+Usage: python benches/bench_spmm.py [--m 16] [--sizes 8,16,24,39]
+Prints one JSON line per case.  Exits non-zero without a GPU.
 """
 
+import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                '..'))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
-
-def run(n1d=48, m=32, reps=20):
+def case(k, m, max_tile_gb=8.0, bs=128):
+    """ms per apply and max relative error of BSR and ELL on ``k``."""
     import jax
-    from raleigh_tpu.examples.laplace import lap3d
-    from raleigh_tpu.ops.spmm import EllMatrix, BsrMatrix
-    from raleigh_tpu.ops.spmm_pallas import PallasBsrMatrix
-
-    a = lap3d(n1d, n1d, n1d, 1.0, 1.0, 1.0)
-    n = a.shape[0]
-    np.random.seed(1)
-    xt = np.random.randn(n, m).astype(np.float32)
-
-    kernels = {
-        'ell': EllMatrix(a),
-        'bsr': BsrMatrix(a, bs=128),
-    }
-    try:
-        if jax.devices()[0].platform not in ('cpu',):
-            kernels['pallas_bsr'] = PallasBsrMatrix(a, bs=128)
-    except Exception:
-        pass
-
     import jax.numpy as jnp
-    xj = jnp.asarray(xt)
-    for name, k in kernels.items():
-        y = k.matmat_t(xj)
-        jax.block_until_ready(y)           # compile + warm
-        t0 = time.time()
-        for _ in range(reps):
-            y = k.matmat_t(xj)
-        jax.block_until_ready(y)
-        dt = (time.time() - t0) / reps
-        print(json.dumps({
-            'metric': 'spmm_nnz_per_s',
-            'kernel': name,
-            'matrix': 'lap3d_%d' % n1d,
-            'n': n, 'nnz': k.nnz, 'block_width': m,
-            'value': round(k.nnz / dt / 1e9, 3), 'unit': 'Gnnz/s',
-        }))
+    from bench import chain_seconds
+    from raleigh_tpu.ops.spmm import (BsrMatrix, EllMatrix, _to_full_csr,
+                                      rows_matmat_operands, sparse_layout)
+
+    csr = _to_full_csr(k)
+    # 1/||K||_inf bounds the chained iterate
+    csr = csr * (1.0 / float(abs(csr).sum(axis=1).max()))
+    n = csr.shape[0]
+    nb = -(-n // bs)
+    row_t = np.repeat(np.arange(n) // bs, np.diff(csr.indptr))
+    ntiles = np.unique(row_t.astype(np.int64) * nb
+                       + csr.indices // bs).size
+    out = {'n': n, 'nnz': int(csr.nnz), 'm': m,
+           'tile_fill': csr.nnz / (ntiles * bs * bs),
+           'layout': sparse_layout(csr, bs)}
+    x = np.random.default_rng(1).standard_normal((m, n)).astype(np.float32)
+    ref = (csr @ x.T.astype(np.float64)).T
+    xd = jnp.asarray(x)
+    for name, cls in (('bsr', BsrMatrix), ('ell', EllMatrix)):
+        if name == 'bsr' and ntiles * bs * bs * 4 > max_tile_gb * 1e9:
+            out['bsr_ms'] = None
+            continue
+        fn, ops = rows_matmat_operands(cls(csr))
+        y = np.asarray(jax.jit(fn)(ops, xd))
+        out['%s_err' % name] = float(np.abs(y - ref).max()
+                                     / np.abs(ref).max())
+        out['%s_ms' % name] = 1e3 * chain_seconds(lambda z: fn(ops, z), xd,
+                                                  reps=50)
+        del ops
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--m', type=int, default=16)
+    parser.add_argument('--sizes', default='8,16,24,39')
+    parser.add_argument('--max-tile-gb', type=float, default=8.0)
+    args = parser.parse_args(argv)
+
+    import jax
+    from raleigh_tpu.examples.fe_model import fe_pencil
+    from raleigh_tpu.utils.env import use_compile_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != 'gpu':
+        sys.exit('bench_spmm: no GPU (JAX default device is %r)'
+                 % dev.platform)
+    use_compile_cache()
+    device = {'platform': dev.platform, 'kind': dev.device_kind,
+              'count': len(jax.devices())}
+    cases = [(int(nc), False) for nc in args.sizes.split(',')]
+    cases.append((cases[-1][0], True))
+    for nc, relabel in cases:
+        k = fe_pencil(nc, 6, 0.10, 7, which='k', relabel=relabel)
+        rec = {'metric': 'fe_spmm', 'nc': nc, 'relabel': relabel,
+               'device': device}
+        rec.update(case(k, args.m, args.max_tile_gb))
+        print(json.dumps(rec), flush=True)
 
 
 if __name__ == '__main__':
-    args = [int(x) for x in sys.argv[1:4]]
-    run(*args)
+    main()

@@ -1,19 +1,19 @@
-"""raleigh_tpu — a TPU-native sparse linear-algebra / eigensolver / PCA framework.
+"""raleigh_tpu — a JAX sparse linear-algebra / eigensolver / PCA framework.
 
-A from-scratch, JAX/XLA/Pallas-first re-design with the capabilities of the
+A from-scratch, JAX/XLA-first re-design with the capabilities of the
 RALEIGH library (block Jacobi-conjugated-gradients eigensolver for symmetric /
 Hermitian problems, partial/truncated SVD, lower-rank approximation and PCA
 with update/incremental/interactive modes; see reference
 raleigh/__init__.py:1-20 for the capability inventory).
 
-Layering (mirrors the reference's L1..L5 but TPU-native):
+Layering (mirrors the reference's L1..L5, device-resident):
 
   interfaces/   SciPy-style front ends: partial_hevp, truncated_svd, pca, ...
   core/         block Jacobi-CG core Solver on the abstract block-vector
                 contract (reference core/solver.py)
   algebra/      block-vector algebra: `numpy` host backend and `jax` device
                 backend (sharded jax.Array over a chip mesh); sparse operators
-  ops/          Pallas TPU kernels (SpMM, fused block ops)
+  ops/          device SpMM (DIA/ELL/BSR) and compensated reductions
   parallel/     mesh / sharding helpers, halo-exchange collectives
   native/       C++ components (sparse LDL^T direct solver with inertia)
   utils/        verbosity, profiling, checkpointing

@@ -2,45 +2,40 @@
 
 Parity with the reference's ``dense_cpu.py`` try-import selector and
 ``AMatrix`` arch switch (raleigh/algebra/dense_cpu.py:10-17,
-dense_matrix.py:10-64), re-targeted at TPUs:
+dense_matrix.py:10-64), re-targeted at JAX devices:
 
-  arch='cpu'           host NumPy algebra
-  arch='tpu' / 'gpu'   JAX device algebra (TPU if present, else whatever
-                       accelerator/CPU JAX is running on)
-  arch='tpu!' / 'gpu!' JAX algebra, raise if no accelerator device exists
+  arch='cpu'                   host NumPy algebra
+  arch='gpu' / 'tpu' / 'jax'   JAX algebra on JAX's default device (all
+                               three names mean the same and route the
+                               same way)
+  arch='gpu!' (etc.)           the same, but raise if JAX's default
+                               device is the host CPU
 """
 
 import numpy as np
 
-from ..utils import verbosity
+DEVICE_ARCHS = ('gpu', 'tpu', 'jax')
 
 
-def _have_accelerator():
-    try:
-        import jax
-        return jax.devices()[0].platform not in ('cpu',)
-    except Exception:
-        return False
+def is_device_arch(arch):
+    """True when ``arch`` selects JAX device algebra."""
+    return str(arch).lower().startswith(DEVICE_ARCHS)
 
 
-def best_backend(arch='tpu'):
+def best_backend(arch='gpu'):
     """Return (module, name) for the requested architecture string."""
     arch = str(arch).lower()
-    want_device = arch.startswith(('tpu', 'gpu', 'jax'))
-    must = arch.endswith('!')
-    if want_device:
-        if must and not _have_accelerator():
-            raise RuntimeError('cannot use TPU: no accelerator device found')
-        try:
-            from . import dense_jax
-            return dense_jax, 'jax'
-        except Exception as e:  # pragma: no cover - jax is a hard dep
-            if must:
-                raise RuntimeError('cannot use TPU: %s' % e)
-            if verbosity.level > 0:
-                print('jax backend unavailable (%s), using numpy' % e)
-    from . import dense_numpy
-    return dense_numpy, 'numpy'
+    if not is_device_arch(arch):
+        from . import dense_numpy
+        return dense_numpy, 'numpy'
+    from . import dense_jax
+    if arch.endswith('!'):
+        import jax
+        platform = jax.devices()[0].platform
+        if platform == 'cpu':
+            raise RuntimeError("arch=%r needs an accelerator, but JAX's "
+                               "default device is %r" % (arch, platform))
+    return dense_jax, 'jax'
 
 
 class AMatrix:

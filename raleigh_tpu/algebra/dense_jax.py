@@ -1,9 +1,8 @@
 """JAX device implementation of the block-vector algebra contract.
 
-This is the TPU-native replacement for the reference's MKL/CUBLAS backends
+This is the device replacement for the reference's MKL/CUBLAS backends
 (raleigh/algebra/dense_cblas.py, dense_cublas.py): one implementation that
-runs on TPU (or any XLA device), single chip or sharded over a
-``jax.sharding.Mesh``.
+runs on any XLA device, one card or sharded over a ``jax.sharding.Mesh``.
 
 Design:
 
@@ -24,15 +23,16 @@ Design:
     the persistent compilation cache.
 
   * All O(m*n) work (Gram matrices, linear combinations, operator
-    applications) is device GEMMs on the MXU; the small O(m^2) results
+    applications) is device GEMMs (cuBLAS on a GPU); the small O(m^2) results
     come back to the host as NumPy arrays, exactly where the reference
     brings Gram matrices back for SciPy factorizations
     (dense_cublas.py:265-269).  Buffer donation keeps updates in place.
 
   * With storage carrying a ``NamedSharding`` over the vector dimension the
     same kernels run SPMD: XLA partitions the contraction over ``n`` into
-    local GEMM + psum over ICI, the TPU equivalent of the "MPI Vectors"
-    the reference leaves as future work (core/solver.py:98-102).
+    local GEMM + psum (NCCL all-reduce across GPUs), the device
+    equivalent of the "MPI Vectors" the reference leaves as future work
+    (core/solver.py:98-102).
 
 Randomness: ``fill_random`` draws on the host with NumPy's global generator
 (uniform in [-1, 1)) and uploads — bit-identical to the host backend, which
@@ -50,11 +50,11 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# On the TPU MXU a "default"-precision f32 matmul truncates operands to
-# bfloat16; an eigensolver's Gram matrices and residuals need true f32, so we
-# default the whole process to the 3-pass bf16 scheme (~f32 quality).  Opt
-# out with RALEIGH_TPU_MATMUL_PRECISION=default for bandwidth-bound
-# workloads that tolerate it.
+# On a GPU a "default"-precision f32 matmul may run in TF32, which keeps
+# about three decimal digits; an eigensolver's Gram matrices and residuals
+# need true f32, so the whole process defaults to "highest" (full f32).
+# Opt out with RALEIGH_TPU_MATMUL_PRECISION=default for workloads that
+# tolerate TF32.
 jax.config.update('jax_default_matmul_precision',
                   os.environ.get('RALEIGH_TPU_MATMUL_PRECISION', 'highest'))
 
@@ -387,8 +387,7 @@ class Vectors:
         """``compensated=True`` routes the Gram reductions (`dot`, and
         `dots` without transp) through the exact-product double-f32
         scheme of ops/compensated.py and returns them in float64 — the
-        accuracy option for d/z workloads on f32-only device hardware
-        (real TPUs have no f64 ALU; see STATUS.md "d/z on TPU")."""
+        accuracy option for d/z workloads kept in f32 storage."""
         self._sharding = sharding
         self._comp = bool(compensated)
         if isinstance(arg, Vectors):
@@ -679,7 +678,7 @@ class Vectors:
         """Economy SVD of the selected block: storage rows become the right
         singular vectors V^H, returns (sigma, conj(U)).
 
-        TPU-native formulation: Gram matrix on device + small host eigh +
+        Device formulation: Gram matrix on device + small host eigh +
         device rotation, refined by one Cholesky-QR pass — the tall-skinny
         scheme the reference itself uses in ``_finalize_svd``
         (raleigh/interfaces/partial_svd.py:162-235) — instead of a

@@ -4,12 +4,12 @@ The contract (method set and semantics) is the abstract ``Vectors`` /
 ``Matrix`` duck type the core solver is written against; it is documented in
 the reference at raleigh/core/solver.py:22-96 and implemented there in
 raleigh/algebra/dense_ndarray.py + dense_numpy.py.  This file is an
-independent implementation serving two roles in the TPU-native framework:
+independent implementation serving two roles in this framework:
 
   * the differential-test oracle for the JAX device backend, and
   * the fast path for host-resident workloads (e.g. the sparse shift-invert
     pipeline, where the LDL^T solves run on the host CPU and shipping block
-    vectors to the device every iteration would waste PCIe/ICI bandwidth).
+    vectors to the device every iteration would waste PCIe bandwidth).
 
 Storage convention: a block of ``m`` vectors of dimension ``n`` is a
 C-contiguous ``(m, n)`` ndarray — vectors are rows, so every hot contract op

@@ -11,7 +11,7 @@ bridges SciPy sparse matrices to MKL csrmm / PARDISO / ILUT), re-targeted:
     inertia — the PARDISO replacement;
   * ``IncompleteLU``            ILU-type preconditioner (host SuperLU ILU,
     reference sparse_mkl.py:122-140 semantics);
-  * ``Chebyshev``               TPU-native polynomial preconditioner: a
+  * ``Chebyshev``               device-resident polynomial preconditioner: a
     Chebyshev approximation to A^-1 on [lo, hi], applied as a short
     recurrence of SpMMs entirely on device (the factorization-free
     alternative SURVEY §7 calls for);
@@ -33,9 +33,8 @@ def _vec_data(x):
 
 def _rows_capable(dev, xd):
     """True when the device matrix can apply directly to the (m, n)
-    row-vector layout (DIA — including its HBM sliding-window fast path)
-    and the operand lives on a single device (the sharded regimes go
-    through parallel/spmm_sharded instead)."""
+    row-vector layout (DIA) and the operand lives on a single device
+    (the sharded regimes go through parallel/spmm_sharded instead)."""
     if not hasattr(dev, 'matmat_rows'):
         return False
     sh = getattr(xd, 'sharding', None)
@@ -55,7 +54,8 @@ class SparseSymmetricMatrix:
         self.__csr = a
         self.__arch = arch
         self.__dev = None
-        if str(arch).lower().startswith(('tpu', 'gpu', 'jax')):
+        from .dense import is_device_arch
+        if is_device_arch(arch):
             from ..ops.spmm import device_sparse
             self.__dev = device_sparse(self.__csr_full,
                                        dtype=self.__csr_full.dtype.type,
@@ -291,7 +291,7 @@ def spectral_bounds(matrix, iters=20, seed=7):
 
 class Chebyshev:
     """Polynomial (Chebyshev) approximation to A^-1 on [lo, hi] applied by
-    a short SpMM recurrence — the TPU-native, factorization-free
+    a short SpMM recurrence — the device-resident, factorization-free
     preconditioner: every application is ``degree`` SpMMs that run entirely
     on device (no host round-trips, no triangular solves)."""
 
@@ -315,8 +315,7 @@ class Chebyshev:
     def _device_fused(self):
         """One-jit version of the whole recurrence: ``degree`` SpMMs plus
         all the axpys compile into a single XLA program, so an apply is
-        one device dispatch instead of ~4*degree (decisive on remote/
-        tunneled devices where each dispatch costs ~1 ms)."""
+        one device dispatch instead of ~4*degree."""
         if self.__fused is not None:
             return self.__fused
         dev = self.__dev_override or self.__op.device_matrix()
@@ -347,13 +346,8 @@ class Chebyshev:
     def _device_fused_rows(self):
         """Row-layout twin of ``_device_fused`` for (m, n) row-vector
         blocks: the recurrence is elementwise except for the SpMMs, which
-        go through ``matmat_rows`` — direct row-layout DIA (including the
-        HBM sliding-window fast path), no relayouts.
-
-        Lane-unaligned HBM-resident problems iterate at the padded width
-        through ``window_padded_fn``: one pad on entry and one slice on
-        exit amortize over the ``degree`` window-kernel applies (the
-        zero-padded diagonals keep the pad lanes zero throughout)."""
+        go through ``matmat_rows`` — direct row-layout DIA, no
+        relayouts."""
         if self.__fused_rows is not None:
             return self.__fused_rows
         dev = self.__dev_override or self.__op.device_matrix()
@@ -363,19 +357,11 @@ class Chebyshev:
         degree = self.degree
 
         import jax
-        import jax.numpy as jnp
+
+        mat = dev.matmat_rows
 
         @jax.jit
         def run(x):
-            m, n = x.shape
-            win = dev.window_padded_fn(m) \
-                if (n % 128 and x.dtype == jnp.float32
-                    and hasattr(dev, 'window_padded_fn')) else None
-            if win is not None:
-                mat, n128 = win
-                x = jnp.pad(x, ((0, 0), (0, n128 - n)))
-            else:
-                mat = dev.matmat_rows
             rho = 1.0 / sigma1
             d = x / theta
             r = x
@@ -386,13 +372,13 @@ class Chebyshev:
                 rho_new = 1.0 / (2.0 * sigma1 - rho)
                 d = (rho * rho_new) * d + (2.0 * rho_new / delta) * r
                 rho = rho_new
-            return y[:, :n] if win is not None else y
+            return y
 
         self.__fused_rows = run
         return run
 
-    def device_rows_operands(self, m, n=None, dtype=None, tile=32768,
-                             stream_bf16=None):
+    def device_rows_operands(self, m, n=None, dtype=None,
+                             stream_bf16=False):
         """Argument-form fused recurrence for superkernel consumers:
         (fn, operands) with ``fn(operands, w)`` applying the whole
         ``degree``-step Chebyshev recurrence to an (m, n) row block.  The
@@ -401,21 +387,19 @@ class Chebyshev:
         superkernel contains no matrix literals — pass the pair straight
         to ``core.device_solver.lobpcg(precond=...)``.
 
-        ``stream_bf16`` runs the recurrence's iterates in bfloat16
-        (f32 diagonal values and accumulation inside the SpMM, f32 in
-        and out): the window kernel sits at the HBM streaming roofline,
-        so at HBM-resident sizes this nearly doubles the preconditioner
-        throughput (measured 15.4 vs 8.1 Gnnz/s, BENCH
-        ``dia_spmm_hbm_bf16_gnnz_per_s``).  A preconditioner is an
-        APPROXIMATE inverse — its own quality target is percent-level —
-        so bf16 iterate rounding costs convergence nothing; the solver's
-        accuracy is set by the f32/f64 outer iteration, not by T
-        (accuracy guard: tests/test_device_solver.py pins identical
-        LOBPCG iteration counts either way).  Default ``None`` = auto:
-        ON when the outer iteration is f32 and the recurrence's working
-        set is HBM-resident (the regime where the stream rate IS the
-        preconditioner cost), OFF below that, where the operand stays
-        VMEM/cache-resident and the cast traffic would only add work."""
+        ``stream_bf16`` (opt-in) runs the recurrence's iterates in
+        bfloat16 (f32 diagonal values and accumulation inside the SpMM,
+        f32 in and out), halving the bytes each SpMM streams.  A
+        preconditioner is an APPROXIMATE inverse — its own quality target
+        is percent-level — so bf16 iterate rounding need not cost
+        convergence (tests/test_device_solver.py pins identical LOBPCG
+        iteration counts either way).  It is off by default: on an H100
+        (700 W), in the n = 1.28e6 LOBPCG at block width 16, it cut one
+        Chebyshev apply from 3.09 to 1.90 ms, about 19 ms of device time
+        over the solve's 16 applies, while three warm solves each way
+        spread over 0.44 s (2.26-2.70 s off, 2.29-2.46 s on, same 16
+        iterations): no end-to-end gain could be shown
+        (benches/bench_lobpcg_hbm.py)."""
         import jax.numpy as jnp
 
         from ..ops.spmm import rows_matmat_operands
@@ -425,17 +409,9 @@ class Chebyshev:
             n = dev.shape[0]
         if dtype is None:
             dtype = jnp.float32
-        if stream_bf16 is None:
-            noff = len(getattr(dev, 'offsets', ()))
-            ws = 2 * m * n * 4 + noff * n * 4
-            stream_bf16 = (noff > 0
-                           and np.dtype(dtype) == np.dtype(np.float32)
-                           and ws > getattr(dev, 'WINDOW_HBM_BYTES',
-                                            112 * 2 ** 20))
         it_dtype = jnp.bfloat16 if stream_bf16 else dtype
         if hasattr(dev, 'rows_operand_form'):
-            mat_fn, ops = dev.rows_operand_form(m, n, dtype=it_dtype,
-                                                tile=tile)
+            mat_fn, ops = dev.rows_operand_form(m, n, dtype=it_dtype)
         else:
             mat_fn, ops = rows_matmat_operands(dev)
         theta = 0.5 * (self.hi + self.lo)

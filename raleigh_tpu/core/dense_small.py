@@ -123,8 +123,7 @@ def pivoted_cholesky(g, fixed, eps):
 def default_block_size(left, right, extra, init_counts, threads):
     """Default block-size policy; parity with reference
     core/solver.py:1690-1734.  ``threads`` plays the role of the hardware
-    granularity hint: block sizes are rounded up to a multiple of it (on TPU
-    a multiple of 8 keeps blocks aligned to VPU sublanes)."""
+    granularity hint: block sizes are rounded up to a multiple of it."""
     import math
     extra_left, extra_right = int(extra[0]), int(extra[1])
     init_left, init_right = init_counts

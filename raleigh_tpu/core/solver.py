@@ -1,6 +1,6 @@
 """Block Jacobi-conjugated-gradients core eigensolver.
 
-TPU-native re-implementation of the RALEIGH core algorithm (reference
+Device-backed re-implementation of the RALEIGH core algorithm (reference
 raleigh/core/solver.py) for standard (A x = lmd x), generalized
 (A x = lmd B x) and product (A B x = lmd x) real-symmetric / Hermitian
 eigenvalue problems, written against the abstract block-vector contract
@@ -12,8 +12,8 @@ reference:
 
   * every O(m*n) operation — operator applications, Gram matrices,
     residuals, linear block combinations — is a contract op, i.e. one or two
-    device GEMMs (MXU) with collectives inserted automatically when the
-    block vectors are sharded over a chip mesh;
+    device GEMMs with collectives inserted automatically when the
+    block vectors are sharded over a device mesh;
   * the data-dependent control flow — convergence / stagnation sweeps,
     cluster handling, block rebalancing, restarts — runs in host Python on
     O(m^2) data between those device calls, so nothing forces dynamic shapes
@@ -81,8 +81,7 @@ class Options:
     core/solver.py:141-197; negative values mean "let the solver decide").
 
     ``threads`` survives as the block-granularity hint: default block sizes
-    are rounded to a multiple of it, which on TPU keeps block dimensions
-    aligned to the 8-sublane VPU tiles.
+    are rounded to a multiple of it.
     """
 
     def __init__(self):
@@ -96,7 +95,7 @@ class Options:
         self.stopping_criteria = None
         self.detect_stagnation = True
         self.max_quota = 0.75
-        # TPU extension: 'auto' lets device-backed interfaces route the
+        # extension: 'auto' lets device-backed interfaces route the
         # iteration to the chunked device engine (core/device_jacobi.py);
         # 'host' forces the reference-style host-orchestrated loop
         self.device_engine = 'auto'
@@ -285,8 +284,8 @@ class Solver:
 
     def _maybe_refine_eigenvalues(self, Xc, verb=0):
         """Final compensated Rayleigh-quotient pass: when the iterated
-        Vectors advertise compensated reductions (d/z-on-TPU option,
-        ``Vectors(compensated=True)``), re-evaluate every converged
+        Vectors advertise compensated reductions (the f32-storage
+        accuracy option, ``Vectors(compensated=True)``), re-evaluate every converged
         eigenvalue as <x, A x> / <x, B x> through the exact-product dot
         path (ops/compensated.py) and f64 host combination.  The hot
         iteration keeps its device-resident f32 Grams — only this one

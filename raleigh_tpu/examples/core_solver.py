@@ -24,6 +24,7 @@ if __package__ in (None, ''):     # runnable as a plain script
     _sys.path.insert(0, _os.path.join(
         _os.path.dirname(_os.path.abspath(__file__)), '..', '..'))
 
+from raleigh_tpu.algebra.dense import is_device_arch
 from raleigh_tpu.core.solver import (Options, Problem, Solver,
                                      DefaultConvergenceCriteria)
 
@@ -37,7 +38,7 @@ def run(problem='std', matrix='diag', n=100, dt='d', left=6, right=0,
     if seed is not None:
         np.random.seed(seed)
     dtype = _DTYPES[dt]
-    if str(arch).lower().startswith(('tpu', 'gpu', 'jax')):
+    if is_device_arch(arch):
         from raleigh_tpu.algebra import dense_jax as backend
     else:
         from raleigh_tpu.algebra import dense_numpy as backend

@@ -207,7 +207,7 @@ def show_errors(images, eigenimages='eigenimages.npz', plot=True):
     return errs
 
 
-def run(npc=800, source='synthetic', arch='tpu', batch=None, verb=0,
+def run(npc=800, source='synthetic', arch='gpu', batch=None, verb=0,
         interactive=False):
     from raleigh_tpu.interfaces.pca import pca
     from raleigh_tpu.core.solver import Options
@@ -251,6 +251,6 @@ if __name__ == '__main__':
     a = [x for x in a if x != 'interactive']
     npc = int(a[0]) if a else 800
     source = a[1] if len(a) > 1 else 'synthetic'
-    arch = a[2] if len(a) > 2 else 'tpu'
+    arch = a[2] if len(a) > 2 else 'gpu'
     batch = int(a[3]) if len(a) > 3 else None
     run(npc, source, arch, batch, interactive=interactive)

@@ -5,7 +5,7 @@ Capability parity with reference raleigh/interfaces/partial_svd.py: the
 normal operator A^T A or A A^T (whichever is smaller, partial_svd.py:25-27),
 the implicit mean-shift trick that never materializes the centered matrix
 (partial_svd.py:252-287), and the iterated-Cholesky finalization of the left
-factor (partial_svd.py:162-235) — which on TPU is exactly the
+factor (partial_svd.py:162-235) — which on a device is exactly the
 tall-skinny-Cholesky-QR scheme XLA likes: device Gram + host small factor +
 device rotation.
 """
@@ -188,8 +188,7 @@ class PartialSVD:
     def _solve_evp(self, v, opSVD, opt, nsv):
         """Run the normal-operator eigensolver: the chunked device engine
         (core/device_jacobi.py) when the algebra lives on an XLA device —
-        one dispatch per ``chunk`` iterations instead of ~10, which is what
-        makes the Jacobi engine fast on remote/tunneled TPUs — or the
+        one dispatch per ``chunk`` iterations instead of ~10 — or the
         reference-style host-orchestrated Solver otherwise."""
         from ..algebra import dense_jax
 

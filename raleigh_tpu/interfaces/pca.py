@@ -3,7 +3,7 @@
 Capability parity with reference raleigh/interfaces/pca.py:16-179: fixed
 component count, tolerance-driven count, warm-start update of previously
 computed components (``have=``), incremental/streaming mode
-(``batch_size=``), and the CPU/TPU architecture switch.
+(``batch_size=``), and the host/device architecture switch.
 
 Usage example (matches the reference doctest problem, pca.py:95-133):
 
@@ -21,7 +21,7 @@ import numpy as np
 import numpy.linalg as nla
 
 from ..core.solver import Options
-from ..algebra.dense import AMatrix
+from ..algebra.dense import AMatrix, is_device_arch
 from .lra import LowerRankApproximation
 
 
@@ -39,16 +39,17 @@ def pca(A, npc=-1, tol=0, have=None, batch_size=None, verb=0, arch='cpu',
     ``method``: 'jacobi' is the reference-parity block Jacobi-CG engine
     (per-vector convergence control, host-orchestrated); 'subspace' is
     the device-resident subspace-iteration engine (one jitted program per
-    stage, near-optimal truncation error — the fast path on remote/TPU
-    devices, covering fixed-npc, tolerance-driven, warm-start and
-    streaming modes); 'auto' (default) picks 'subspace' on ``arch='tpu'``
-    for every non-interactive mode and 'jacobi' otherwise.
+    stage, near-optimal truncation error — the fast path on a device,
+    covering fixed-npc, tolerance-driven, warm-start and streaming
+    modes); 'auto' (default) picks 'subspace' on a device arch
+    (``arch='gpu'``) for every non-interactive mode and 'jacobi'
+    otherwise.
     """
     if opt is None:
         opt = Options()
     if method == 'auto':
         interactive = npc < 1 and tol == 0
-        method = 'subspace' if (arch.startswith('tpu')
+        method = 'subspace' if (is_device_arch(arch)
                                 and not interactive) else 'jacobi'
     if method == 'subspace':
         from . import randomized as rz

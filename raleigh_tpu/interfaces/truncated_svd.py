@@ -29,7 +29,8 @@ def truncated_svd(A, opt=None, nsv=-1, tol=0, norm='s', msv=-1, vtol=0,
     ``nsv`` requested number of singular triplets (negative: driven by
     ``tol`` in norm ``norm``, or interactively when ``tol == 0``); ``msv``
     caps the number computed; ``vtol`` is the singular-vector error
-    tolerance; ``arch`` selects 'cpu' (host) or 'tpu' (device) algebra.
+    tolerance; ``arch`` selects 'cpu' (host) or 'gpu' (JAX device)
+    algebra.
 
     Returns (u, sigma, vt).
     """

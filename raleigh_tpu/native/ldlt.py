@@ -3,7 +3,9 @@
 Replaces the reference's ctypes->MKL PARDISO route
 (reference raleigh/algebra/mkl_wrap.py:350-545) with our own native code:
 analyse / factorize / block solve / inertia.  The shared library is built
-on first use with g++ and cached next to the source.
+on first use with g++ from the committed sources and kept next to them
+(``libldlt.so``, not committed: ``-march=native`` ties it to the host that
+built it).
 """
 
 import ctypes
@@ -40,13 +42,47 @@ def _find_blas():
 
 
 def _build():
-    cmd = ['g++', '-O3', '-march=native', '-funroll-loops', '-fopenmp',
-           '-shared', '-fPIC'] + _SRC + ['-o', _LIB]
+    """Compile the committed sources into ``libldlt.so`` (one g++ call;
+    OpenMP when the toolchain has it).  An advisory file lock serializes
+    concurrent builders (test workers, several processes of one run), and
+    the library is written under a fixed side name and renamed into
+    place, so no process ever loads a half-written file."""
+    import fcntl
+    partial = _LIB + '.partial'
+    with open(_LIB + '.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(_LIB):         # another process built it meanwhile
+            return
+        cmd = ['g++', '-O3', '-march=native', '-funroll-loops', '-fopenmp',
+               '-shared', '-fPIC'] + _SRC + ['-o', partial]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+        except subprocess.CalledProcessError:
+            cmd.remove('-fopenmp')
+            subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(partial, _LIB)
+
+
+def _stale(path):
+    """True when ``path`` is missing or older than any committed source."""
+    return not os.path.exists(path) or any(
+        os.path.getmtime(s) > os.path.getmtime(path) for s in _SRC)
+
+
+def _open(path):
+    """Load the library, building it first when it is the package's own
+    build and it is missing, stale, or cannot be loaded (a binary made
+    on another host or by another toolchain)."""
+    if path != _LIB:
+        return ctypes.CDLL(path)
+    if _stale(path):
+        _build()
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-    except subprocess.CalledProcessError:
-        cmd.remove('-fopenmp')
-        subprocess.run(cmd, check=True, capture_output=True)
+        return ctypes.CDLL(path)
+    except OSError:
+        os.remove(path)
+        _build()
+        return ctypes.CDLL(path)
 
 
 def _load():
@@ -55,12 +91,7 @@ def _load():
         if _lib is not None:
             return _lib
         from ..utils import env
-        path = env.native_lib_path or _LIB
-        if not os.path.exists(path) or (
-                path == _LIB and any(os.path.getmtime(s) >
-                                     os.path.getmtime(path) for s in _SRC)):
-            _build()
-        lib = ctypes.CDLL(path)
+        lib = _open(env.native_lib_path or _LIB)
         i64 = ctypes.c_int64
         p64 = ctypes.POINTER(ctypes.c_int64)
         pd = ctypes.POINTER(ctypes.c_double)

@@ -1,10 +1,10 @@
-"""Compensated (double-word) Gram reductions: f64-class dot products on
-an f32 MXU.
+"""Compensated (double-word) Gram reductions: f64-class dot products from
+f32 storage and f32 matrix products.
 
-Why this exists: real TPUs have no float64 ALU, so f64/c128 workloads the
-reference runs natively through its s/d/c/z MKL tables
-(reference raleigh/algebra/mkl_wrap.py:137-201) execute here in f32/c64
-(STATUS.md, "d/z on TPU").  The dominant error in the eigensolver's hot
+Why this exists: the device engines iterate f64/c128 workloads, which the
+reference runs natively through its s/d/c/z MKL tables (reference
+raleigh/algebra/mkl_wrap.py:137-201), in f32/c64 storage.  The dominant
+error in the eigensolver's hot
 reductions — Gram matrices G = X Yᴴ contracted over the vector dimension
 n — is the f32 accumulation, which grows with n and at n ~ 1e6 leaves
 only ~4 meaningful digits on clustered spectra.
@@ -18,7 +18,7 @@ so that every partial matmul is EXACT in float32:
     (s1 + s2 + s3 == x exactly; s1, s2 on aligned grids);
   * a product of two 8-bit slices has <= 16 mantissa bits on a known
     grid, so a 256-term dot product of them needs <= 24 bits — it
-    accumulates in the f32 MXU without ANY rounding;
+    accumulates in an f32 matrix product without ANY rounding;
   * the four high-order slice products per chunk combine into a running
     double-f32 (sum, err) pair via TwoSum (error-free transformation),
     so cross-chunk accumulation is exact up to the pair's ~2^-48 floor;

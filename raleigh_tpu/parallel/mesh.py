@@ -4,9 +4,11 @@ The single scaling axis of this domain is the vector dimension ``n`` (the
 problem size): block vectors are ``(m, n)`` arrays sharded over the mesh
 along ``n`` (PartitionSpec(None, 'shards')).  Under ``jit`` XLA's SPMD
 partitioner then turns every Gram/``dot`` contraction into a local GEMM
-followed by a psum over ICI, and leaves linear combinations local — the
-TPU equivalent of the "MPI Vectors" extension point the reference names at
-core/solver.py:98-102.
+followed by a psum (an NCCL all-reduce between GPUs), and leaves linear
+combinations local — the device equivalent of the "MPI Vectors" extension
+point the reference names at core/solver.py:98-102.  ``make_mesh`` takes
+``jax.devices()`` in order: the cards of one host are joined all to all
+(NVLink), so the mesh follows the algorithm alone.
 """
 
 import numpy as np
@@ -31,12 +33,11 @@ def make_mesh2d(hosts, chips_per_host, devices=None):
     """A 2-D ('hosts', 'shards') mesh for multi-host topologies.
 
     The vector dimension shards over BOTH axes (``blockvec_sharding``
-    names every mesh axis), so Gram reductions become a two-stage psum
-    that XLA lowers to ICI within the inner (chips) axis and DCN across
-    the outer (hosts) axis on real multi-host slices — the SURVEY §5.8
-    "ICI (intra-slice) or DCN (multi-host)" split with no solver
+    names every mesh axis), so Gram reductions become a two-stage psum:
+    within a host over the inner (cards) axis and across hosts over the
+    outer axis — the SURVEY §5.8 intra/inter-node split with no solver
     changes.  On a virtual CPU mesh both stages are plain collectives,
-    which is what the driver dry-run validates."""
+    which is what the multi-device dry-run validates."""
     if devices is None:
         devices = jax.devices()
     need = hosts * chips_per_host

@@ -4,7 +4,8 @@ The multi-chip sparse kernel the SURVEY's north star calls for: the
 symmetric matrix is bandwidth-reduced (reverse Cuthill-McKee), its ELL
 structure row-partitioned over the mesh, and each shard computes its row
 block against its local slice of the operand plus a halo of neighbor rows
-fetched with ``lax.ppermute`` over ICI — communication proportional to the
+fetched with ``lax.ppermute`` (NCCL between GPUs) — communication
+proportional to the
 matrix bandwidth, not to n, and overlapped with local compute by XLA's
 latency-hiding scheduler.
 

@@ -1,7 +1,7 @@
 """Test configuration: run JAX on a virtual 8-device CPU mesh with x64 on.
 
 Mirrors the driver's multi-chip dry-run environment so the sharded algebra
-paths are exercised without TPU hardware.
+paths are exercised without accelerator hardware.
 """
 
 import os

@@ -206,7 +206,7 @@ def test_sharded_vectors_match_single():
 
 
 def test_compensated_gram_accuracy():
-    """The d/z-on-TPU accuracy option (STATUS.md): f32 storage with
+    """The compensated accuracy option: f32 storage with
     compensated Gram reductions recovers ~f64 dot products — the pinned
     bound is 1e-10 relative against a float64 oracle at n = 200k, where
     the plain f32 contraction carries ~1e-6."""
@@ -276,7 +276,7 @@ def test_compensated_solver_eigenvalues():
     top = np.array([4.0, 3.75, 3.5, 3.25], np.float32)
     d[:4] = top
     A = SparseSymmetricMatrix(scs.diags(d.astype(np.float64)).tocsr(),
-                              arch='tpu')
+                              arch='gpu')
 
     def run(comp):
         v = dense_jax.Vectors(n, data_type=np.float32, compensated=comp)

@@ -2,6 +2,7 @@
 against exact LAPACK truncation (the engine behind bench.py)."""
 
 import numpy as np
+import pytest
 
 from raleigh_tpu.examples.generate_matrix import generate
 from raleigh_tpu.interfaces.pca import pca, pca_error
@@ -23,6 +24,26 @@ def test_subspace_pca_matches_optimal_truncation():
     # components orthonormal
     g = comps @ comps.T
     assert np.abs(g - np.eye(80)).max() < 5e-3
+
+
+def test_subspace_pca_components_orthonormal_wide_spectrum():
+    """f32 data whose retained spectrum spans (sigma_1/sigma_k)^2 ~ 2e5:
+    the Gram route alone loses orthogonality to ~1e-2 there; the
+    Cholesky-QR pass restores it without changing trans @ comps."""
+    from raleigh_tpu.interfaces.randomized import subspace_pca
+
+    np.random.seed(1)
+    A, s0, *_ = generate(1000, 1500, 1000, pca=True)
+    assert s0[0] / s0[399] > 400
+    mean, trans, comps = subspace_pca(A, 400)
+    assert comps.dtype == np.float32
+    g = comps.astype(np.float64) @ comps.T.astype(np.float64)
+    assert np.abs(g - np.eye(400)).max() < 1e-5
+    em, ef = pca_error(A, mean, trans, comps)
+    mu = A.mean(axis=0)
+    s = np.linalg.svd(A - mu, compute_uv=False)
+    ef_opt = np.sqrt((s[400:] ** 2).sum() / (s ** 2).sum())
+    assert ef <= ef_opt * 1.005
 
 
 def test_subspace_pca_tol_adaptive_rank():
@@ -123,3 +144,36 @@ def test_randomized_svd_sigma():
     # A v ~= u s
     av = A @ vt.T
     assert np.abs(av - u * s).max() < 1e-3 * s0[0]
+
+
+@pytest.mark.parametrize('arch', ['gpu', 'tpu', 'jax', 'GPU', 'cpu'])
+def test_pca_device_arch_routing(monkeypatch, arch):
+    """Every device arch string ('gpu', 'tpu', 'jax', any case) means
+    JAX's default device and routes pca(method='auto') to the subspace
+    engine; 'cpu' keeps the host Jacobi engine."""
+    from raleigh_tpu.interfaces import randomized as rz
+
+    calls = []
+    real = rz.subspace_pca
+
+    def spy(a, npc, **kw):
+        calls.append(npc)
+        return real(a, npc, **kw)
+
+    monkeypatch.setattr(rz, 'subspace_pca', spy)
+    np.random.seed(1)
+    A, *_ = generate(300, 200, 100, pca=True)
+    mean, trans, comps = pca(A, npc=10, arch=arch)
+    assert comps.shape == (10, 200)
+    assert calls == ([] if arch == 'cpu' else [10])
+
+
+def test_strict_device_arch_needs_accelerator():
+    """'gpu!' asks for an accelerator: on the CPU platform the backend
+    selection refuses, naming the platform JAX reports."""
+    from raleigh_tpu.algebra.dense import best_backend, is_device_arch
+
+    assert is_device_arch('gpu!') and not is_device_arch('cpu')
+    assert best_backend('gpu')[1] == 'jax'
+    with pytest.raises(RuntimeError, match="'cpu'"):
+        best_backend('gpu!')

@@ -33,7 +33,7 @@ def test_sparse_matrix_apply_vectors():
     n = a.shape[0]
     np.random.seed(1)
     xd = np.random.randn(5, n)
-    for backend, arch in ((dense_numpy, 'cpu'), (dense_jax, 'tpu')):
+    for backend, arch in ((dense_numpy, 'cpu'), (dense_jax, 'gpu')):
         op = SparseSymmetricMatrix(a, arch=arch)
         x = backend.Vectors(xd.astype(np.float64))
         y = backend.Vectors(n, 5, np.float64)
@@ -301,9 +301,9 @@ def test_partial_hevp_device_jacobi_engine():
     a = lap3d(8, 8, 8, 1.0, 1.0, 1.0)
     exact = np.sort(lap3d_eigenvalues(8, 8, 8, 1.0, 1.0, 1.0))[:5]
     lo, hi = spectral_bounds(a)
-    ch = Chebyshev(a, lo, hi, degree=8, arch='tpu')
+    ch = Chebyshev(a, lo, hi, degree=8, arch='gpu')
     lmd, x, st = partial_hevp(a, T=ch, which=5, tol=1e-8, verb=-1,
-                              arch='tpu', engine='jacobi')
+                              arch='gpu', engine='jacobi')
     assert st == 0
     assert np.abs(np.sort(lmd)[:5] - exact).max() / exact[-1] < 1e-6
 
@@ -312,7 +312,7 @@ def test_partial_hevp_device_jacobi_engine():
     b = scs.diags([np.full(n - 1, 0.1), np.linspace(1.0, 1.5, n),
                    np.full(n - 1, 0.1)], [-1, 0, 1], format='csr')
     lmd_g, xg, st_g = partial_hevp(a, B=b, T=ch, which=4, tol=1e-7,
-                                   verb=-1, arch='tpu', engine='jacobi')
+                                   verb=-1, arch='gpu', engine='jacobi')
     assert st_g == 0
     want = np.sort(spl.eigsh(a, k=4, M=b, sigma=0, which='LM',
                              return_eigenvectors=False))

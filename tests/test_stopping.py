@@ -9,18 +9,29 @@ from raleigh_tpu.examples.generate_matrix import generate
 
 def test_truncated_svd_interactive(monkeypatch):
     """Interactive mode: the user is asked after each batch of converged
-    singular values; answering 'n' stops (reference truncated_svd.py:277)."""
+    singular values; answering 'n' stops (reference truncated_svd.py:277)
+    — no further prompt, and fewer triplets than the rank.  The matrix
+    has full rank 300, so the 128-vector block cannot converge the whole
+    spectrum in the three batches before the 'n'."""
     from raleigh_tpu.interfaces.truncated_svd import truncated_svd
 
     answers = iter(['', '', 'n'])
-    monkeypatch.setattr('builtins.input', lambda msg: next(answers, 'n'))
+    asked = []
+
+    def answer(msg):
+        asked.append(msg)
+        return next(answers, 'n')
+
+    monkeypatch.setattr('builtins.input', answer)
     np.random.seed(1)
-    A, *_ = generate(400, 300, 150)
+    A, *_ = generate(400, 300, 300)
     u, sigma, vt = truncated_svd(A, nsv=-1, tol=0)
     k = sigma.shape[0]
-    assert k > 0
-    # we answered "more" twice then stopped: k is small relative to rank
-    assert k < 150
+    # we answered "more" twice then stopped: exactly three prompts, and
+    # k is small relative to the rank
+    assert len(asked) == 3
+    assert 0 < k < 300
+    assert u.shape == (400, k) and vt.shape == (k, 300)
 
 
 def test_user_stopping_criteria(monkeypatch):

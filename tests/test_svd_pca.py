@@ -19,7 +19,7 @@ def _data(pca_mode=False, m=M, n=N, rank=RANK):
     return generate(m, n, rank, pca=pca_mode)
 
 
-@pytest.mark.parametrize('arch', ['cpu', 'tpu'])
+@pytest.mark.parametrize('arch', ['cpu', 'gpu'])
 def test_truncated_svd_topk(arch):
     A, sigma0, u0, v0 = _data()
     u, sigma, vt = truncated_svd(A, nsv=20, arch=arch)
